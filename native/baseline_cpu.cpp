@@ -11,10 +11,11 @@
 // replaces the FST string-key lookup (src/commands/prot2kmer2lca.rs:174-179)
 // with an open-addressing hash probe on packed u64 k-mers, which is
 // strictly faster than FST traversal. The measured pairs/s is therefore
-// an upper bound on the reference's throughput on this host, making the
-// TPU-vs-baseline ratio conservative.
+// an upper bound on the reference's throughput on the host it runs on,
+// making an accelerator-vs-baseline ratio conservative.
 //
-// Build: g++ -O3 -march=native -std=c++17 -pthread -o baseline_cpu baseline_cpu.cpp
+// Build: make -C native (or g++ -O3 -march=native -std=c++17 -pthread
+//        -o baseline_cpu baseline_cpu.cpp)
 // Run:   ./baseline_cpu <.bench_data dir> [repeats] [hash|fst]
 // Output: one JSON line {"pairs_per_s": ..., "threads": ..., "checksum": ...}
 //

@@ -1,7 +1,7 @@
-"""Generate the shared benchmark workload (TPU bench + CPU baseline).
+"""Generate the shared benchmark workload (device bench + CPU baseline).
 
 Produces a deterministic, realistic workload consumed byte-identically by
-``bench.py`` (the TPU pipeline) and ``native/baseline_cpu.cpp`` (the
+``bench.py`` (the device pipeline) and ``native/baseline_cpu.cpp`` (the
 measured CPU denominator), so both run exactly the same work:
 
 * 20k-node synthetic taxonomy (8% invalid; valid-ancestor snapping).

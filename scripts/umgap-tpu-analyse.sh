@@ -4,8 +4,8 @@
 # The counterpart of the reference's umgap-analyse.sh
 # (/root/reference/scripts/umgap-analyse.sh): where that script wires
 # 5-7 processes per sample with pipes, FIFOs, and a Unix-socket index
-# service, the TPU pipelines are fused device programs and the index
-# stays resident in HBM across samples. This wrapper delegates straight
+# service, the umgap_tpu pipelines are fused device programs and the
+# index stays resident in device memory across samples. This wrapper delegates straight
 # to `umgap-tpu analyse`, which supports the same repeated
 # -1/-2/-t/-z/-o multi-sample groups, gzip sniffing, and config-dir
 # data-version discovery.

@@ -5,8 +5,13 @@ Deterministically builds (seeded, no wall-clock or machine dependence):
 * ``data/taxonomy.tsv``  — a ~2.5k-node synthetic NCBI-style taxonomy
   (ranked chains superkingdom..strain, "no rank" intermediates, ~8%
   invalid nodes, sparse ids).
-* ``data/ninemer.tsv``   — a 9-mer -> taxid index derived from the
-  reference test corpus (/root/reference/testdata/A1.fq+A2.fq): each
+* ``data/A1.fq`` + ``data/A2.fq`` — the paired read corpus: 100 pairs,
+  each reading both ends of its own random fragment, 100-150 bp
+  per end, a few ends short (< 60 bp) and a few holding ``N``. Records
+  are single-line, so the corpus runs the native streaming ingest;
+  multi-line FASTQ cases are written by the tests that exercise them.
+* ``data/ninemer.tsv``   — a 9-mer -> taxid index derived from that
+  corpus: each
   read pair is assigned a ground-truth species; ~60% of the 9-mers of
   one deterministic "coding frame" per read map to that species (or an
   ancestor, to exercise snapping), other frames contribute ~5% noise.
@@ -35,7 +40,6 @@ sys.path.insert(0, REPO)
 
 from tests.oracle import refimpl as R  # noqa: E402
 
-TESTDATA = "/root/reference/testdata"
 DATA = os.path.join(HERE, "data")
 EXPECTED = os.path.join(HERE, "expected")
 
@@ -101,6 +105,43 @@ def taxonomy_tsv(rows) -> str:
 # index construction from the test corpus
 # ---------------------------------------------------------------------- #
 
+N_PAIRS = 100
+
+
+def _fastq_record(rng, header: str, seq: str) -> str:
+    qual = "".join("#" if c == "N" else chr(33 + int(q))
+                   for c, q in zip(seq, rng.integers(2, 41, len(seq))))
+    return f"@{header}\n{seq}\n+\n{qual}\n"
+
+
+def build_reads():
+    """The paired FASTQ corpus as (A1 text, A2 text)."""
+    rng = np.random.default_rng(SEED + 3)
+    a1, a2 = [], []
+    for i in range(N_PAIRS):
+        # each pair reads both ends of its own random fragment, so the
+        # planted per-pair truth is not blurred by shared sequence
+        frag_len = int(rng.integers(250, 450))
+        frag = "".join("ACGT"[c] for c in rng.integers(0, 4, frag_len))
+        ends = [frag, R.reverse_complement(frag)]
+        if i == 0:
+            lens = [100, 100]  # tests index this clean 100 bp first read
+        else:
+            lens = [int(rng.integers(100, 151)) for _ in ends]
+            if i % 16 == 7:
+                lens[int(rng.integers(0, 2))] = int(rng.integers(20, 60))
+        seqs = [e[:n] for e, n in zip(ends, lens)]
+        if i % 11 == 5:
+            which = int(rng.integers(0, 2))
+            seq = list(seqs[which])
+            for pos in rng.integers(0, len(seq), int(rng.integers(1, 4))):
+                seq[int(pos)] = "N"
+            seqs[which] = "".join(seq)
+        a1.append(_fastq_record(rng, f"sim{i + 1:03d}/1", seqs[0]))
+        a2.append(_fastq_record(rng, f"sim{i + 1:03d}/2", seqs[1]))
+    return "".join(a1), "".join(a2)
+
+
 def read_fastq_file(path):
     with open(path) as f:
         return R.read_fastq(f.read())
@@ -117,8 +158,8 @@ def build_indexes(taxa_rows):
     parent_of = {tid: p for tid, _n, _r, p, _v in taxa_rows}
     all_valid = [tid for tid, _n, _r, _p, v in taxa_rows if v and tid != 1]
 
-    a1 = read_fastq_file(os.path.join(TESTDATA, "A1.fq"))
-    a2 = read_fastq_file(os.path.join(TESTDATA, "A2.fq"))
+    a1 = read_fastq_file(os.path.join(DATA, "A1.fq"))
+    a2 = read_fastq_file(os.path.join(DATA, "A2.fq"))
     tt = R.TranslationTable(1)
 
     ninemer = {}
@@ -190,9 +231,36 @@ def index_tsv(index) -> str:
 # golden outputs
 # ---------------------------------------------------------------------- #
 
+# the 9-mer presets of scripts/umgap-analyse.sh:276-288 as
+# (seedextend -s, taxa2agg -l, -m, -a, -f)
+NINEMER_PRESETS = {
+    "max-sensitivity": (2, 1, "rmq", "mrtl", 0.25),
+    "high-sensitivity": (3, 1, "tree", "hybrid", 0.25),
+    "high-precision": (3, 2, "tree", "lca*", 0.25),
+    "max-precision": (4, 5, "tree", "lca*", 0.25),
+}
+
+
+def ninemer_pipeline(translated: str, ninemer: dict, tax_tsv: str,
+                     preset: str) -> str:
+    """The oracle composition of a 9-mer preset over ``translate -a``
+    output: prot2kmer2lca -o | seedextend -g 1 | uniq -d / | taxa2agg."""
+    s, l, method, strategy, factor = NINEMER_PRESETS[preset]
+    x = R.prot2kmer2lca(translated, ninemer, one_on_one=True)
+    x = R.seedextend(x, min_seed_size=s, max_gap_size=1)
+    x = R.uniq(x, delimiter="/")
+    return R.taxa2agg(x, tax_tsv, lower_bound=l, method=method,
+                      strategy=strategy, factor=factor)
+
+
 def main():
     os.makedirs(DATA, exist_ok=True)
     os.makedirs(EXPECTED, exist_ok=True)
+
+    a1_text, a2_text = build_reads()
+    for name, text in (("A1.fq", a1_text), ("A2.fq", a2_text)):
+        with open(os.path.join(DATA, name), "w") as f:
+            f.write(text)
 
     taxa_rows = build_taxonomy()
     tax_tsv = taxonomy_tsv(taxa_rows)
@@ -210,11 +278,6 @@ def main():
         f.write("".join(f"{h}\t{sp}\n" for h, sp in truth))
     print(f"taxonomy: {len(taxa_rows)} nodes; ninemer: {len(ninemer)} keys; "
           f"tryptic: {len(tryptic)} keys")
-
-    with open(os.path.join(TESTDATA, "A1.fq")) as f:
-        a1_text = f.read()
-    with open(os.path.join(TESTDATA, "A2.fq")) as f:
-        a2_text = f.read()
 
     golden = {}
 
@@ -285,18 +348,9 @@ def main():
                                            scored=True, lower_bound=0.5)
 
     # ---- pipelines (scripts/umgap-analyse.sh:276-311) --------------- #
-    def ninemer_pipeline(s, l, method="tree", strategy="hybrid", factor=0.25):
-        x = R.prot2kmer2lca(translated, ninemer, one_on_one=True)
-        x = R.seedextend(x, min_seed_size=s, max_gap_size=1)
-        x = R.uniq(x, delimiter="/")
-        return R.taxa2agg(x, tax_tsv, lower_bound=l, method=method,
-                          strategy=strategy, factor=factor)
-
-    golden["pipeline_max_sensitivity"] = ninemer_pipeline(2, 1, "rmq", "mrtl")
-    golden["pipeline_high_sensitivity"] = ninemer_pipeline(3, 1, "tree",
-                                                           "hybrid", 0.25)
-    golden["pipeline_high_precision"] = ninemer_pipeline(3, 2, "tree", "lca*")
-    golden["pipeline_max_precision"] = ninemer_pipeline(4, 5, "tree", "lca*")
+    for preset in NINEMER_PRESETS:
+        golden["pipeline_" + preset.replace("-", "_")] = ninemer_pipeline(
+            translated, ninemer, tax_tsv, preset)
 
     def tryptic_pipeline(l):
         x = R.prot2tryp2lca(translated, tryptic, min_length=9, max_length=45)

@@ -15,7 +15,7 @@ from umgap_tpu.cli import main as cli_main
 from umgap_tpu.index.table import KmerTable
 from umgap_tpu.ops import encoding, kmers as kmerops
 
-TESTDATA = "/root/reference/testdata"
+TESTDATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "data")
 
 
 @pytest.fixture
@@ -77,7 +77,7 @@ def test_analyse_service(world, tmp_path, monkeypatch):
         rc_box["rc"] = cli_main(
             ["analyse", "--serve", sock,
              "--taxons", taxfile, "--index", idxfile,
-             "--read-length", "100"],
+             "--read-length", "150"],
             stdin=io.StringIO(""), stdout=io.StringIO())
 
     t = threading.Thread(target=serve, daemon=True)

@@ -139,8 +139,6 @@ def test_analyse_gzip_and_configdir(tmp_path):
     import io as iomod
 
     from tests.test_golden import DATA, A1, A2, data
-    if not os.path.exists(A1):
-        pytest.skip("reference testdata not available")
 
     class _BinOut(iomod.StringIO):
         def __init__(self):
@@ -180,8 +178,6 @@ def test_analyse_multi_sample(tmp_path):
     import io as iomod
 
     from tests.test_golden import DATA, A1, A2, data, golden
-    if not os.path.exists(A1):
-        pytest.skip("reference testdata not available")
 
     class _BinOut(iomod.StringIO):
         def __init__(self):

@@ -14,7 +14,7 @@ from umgap_tpu.cli import main as cli_main
 from umgap_tpu.index.table import KmerTable, PeptideTable
 from umgap_tpu.ops import encoding, kmers as kmerops
 
-TESTDATA = "/root/reference/testdata"
+TESTDATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "data")
 # digest: "MK" (dropped, <9) + "AAAAAAAAAK" (kept); 4 distinct 9-mers
 PROT = "MKAAAAAAAAAK"
 

@@ -4,9 +4,9 @@ Every test byte-compares a CLI invocation against a committed golden
 file in tests/golden/expected/, generated by the oracle transliteration
 of the reference Rust (tests/oracle/refimpl.py, see PARITY.md for why
 the Rust binary itself cannot run here). Inputs are the reference's own
-test corpus (/root/reference/testdata/A1.fq+A2.fq) pushed through the
-full pipeline, with committed synthetic taxonomy/indexes
-(tests/golden/data/).
+seeded paired read corpus (tests/golden/data/A1.fq+A2.fq, written by
+tests/golden/gen.py) pushed through the full pipeline, with committed
+synthetic taxonomy/indexes beside it.
 """
 
 import io
@@ -21,15 +21,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "golden")
 DATA = os.path.join(GOLDEN, "data")
 EXPECTED = os.path.join(GOLDEN, "expected")
-TESTDATA = "/root/reference/testdata"
-
-A1 = os.path.join(TESTDATA, "A1.fq")
-A2 = os.path.join(TESTDATA, "A2.fq")
+A1 = os.path.join(DATA, "A1.fq")
+A2 = os.path.join(DATA, "A2.fq")
 TAXONOMY = os.path.join(DATA, "taxonomy.tsv")
-
-pytestmark = pytest.mark.skipif(
-    not os.path.exists(A1), reason="reference testdata not available"
-)
 
 
 def golden(name: str) -> str:

@@ -1,5 +1,7 @@
 """Native host-runtime tests: C++ parser vs the Python IO layer."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -9,11 +11,12 @@ from umgap_tpu.ops import encoding, kmers
 pytestmark = pytest.mark.skipif(
     not native.ensure_built(), reason="native library unavailable")
 
-TESTDATA = "/root/reference/testdata/A1.fq"
+TESTDATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "golden", "data", "A1.fq")
 
 
 def test_parse_fastq_matches_python():
-    headers, codes, lens = native.parse_fastq_file(TESTDATA, max_len=120)
+    headers, codes, lens = native.parse_fastq_file(TESTDATA, max_len=150)
     with open(TESTDATA) as f:
         py = list(fastq.read_records(f))
     assert len(headers) == len(py) == 100
@@ -133,3 +136,18 @@ def test_insert_bucketized_capacity_exhausted_matches():
         with pytest.raises(RuntimeError):
             _insert_bucketized(bucket0, [p0], cap, bucket=bucket,
                                max_round=None, use_native=use_native)
+
+
+def test_ensure_built_makes_only_the_library(monkeypatch):
+    calls = []
+    real_run = native.subprocess.run
+
+    def run(argv, **kw):
+        calls.append(argv)
+        return real_run(argv, **kw)
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native.subprocess, "run", run)
+    assert native.ensure_built()
+    assert calls == [["make", "-C", native._NATIVE_DIR,
+                      "libumgap_native.so"]]

@@ -2,7 +2,7 @@
 
 The reference's one scale mechanism — the shared socket index of
 umgap-analyse.sh:257-264 — is user-facing; these tests drive its
-pod-scale counterpart through the SAME user-facing CLI entry point over
+multi-device counterpart through the SAME user-facing CLI entry point over
 the 8-device virtual CPU mesh and require byte-identical output to the
 single-device path for every preset.
 """
@@ -16,7 +16,7 @@ import pytest
 
 from umgap_tpu.cli import main as cli_main
 
-TESTDATA = "/root/reference/testdata"
+TESTDATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "data")
 DATA = os.path.join(os.path.dirname(__file__), "golden", "data")
 
 PRESETS_6 = ["max-sensitivity", "high-sensitivity", "high-precision",

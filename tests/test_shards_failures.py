@@ -157,6 +157,16 @@ def test_hbm_guard_divisor_advice(workdir, monkeypatch, capsys):
     assert "serve this artifact on a mesh of >= 4 devices" in err
 
 
+def test_hbm_guard_reports_unknown_limit(workdir, monkeypatch, capsys):
+    """With no UMGAP_HBM_BYTES and a device that reports no memory limit
+    (CPU devices report none) the guard says so and does not guess."""
+    monkeypatch.delenv("UMGAP_HBM_BYTES", raising=False)
+    rc, out = _run(workdir["work"], workdir["reads"], workdir["taxons"])
+    assert rc == 0
+    assert out.count(">") == 8
+    assert "no device memory limit known" in capsys.readouterr().err
+
+
 def test_no_manifest(workdir, tmp_path, capsys):
     empty = tmp_path / "empty"
     empty.mkdir()

@@ -16,7 +16,7 @@ from umgap_tpu.io import native
 from umgap_tpu.ops import encoding, kmers as kmerops
 from umgap_tpu.taxonomy import Taxon, Taxonomy
 
-TESTDATA = "/root/reference/testdata"
+TESTDATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "data")
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library unavailable")
@@ -162,7 +162,7 @@ def test_analyse_two_samples_compile_once(world, tmp_path, monkeypatch):
         "-t", "max-sensitivity",
         "-1", os.path.join(TESTDATA, "A1.fq"),
         "-2", os.path.join(TESTDATA, "A2.fq"), "-o", str(o2),
-        "--taxons", taxfile, "--index", idxfile, "--read-length", "100"])
+        "--taxons", taxfile, "--index", idxfile, "--read-length", "150"])
     assert o1.read_text() == o2.read_text()
     assert o1.read_text().count(">") == 100
     assert len(calls) == 1  # one fast program; no wide program needed
@@ -186,7 +186,7 @@ def test_analyse_batch_bucketing(world, monkeypatch):
         "-t", "max-sensitivity",
         "-1", os.path.join(TESTDATA, "A1.fq"),
         "-2", os.path.join(TESTDATA, "A2.fq"),
-        "--taxons", taxfile, "--index", idxfile, "--read-length", "100"])
+        "--taxons", taxfile, "--index", idxfile, "--read-length", "150"])
     assert text.count(">") == 100
     assert sizes == [128]  # 100 reads -> 128 bucket
 

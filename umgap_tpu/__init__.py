@@ -1,11 +1,10 @@
-"""umgap_tpu — a TPU-native metagenomics analysis framework.
+"""umgap_tpu — a metagenomics analysis framework on JAX accelerators.
 
 A ground-up reimplementation of the capabilities of UMGAP (Unipept
-MetaGenomics Analysis Pipeline, reference mounted at /root/reference)
-designed for TPU hardware: JAX/XLA/Pallas compute kernels over dense
-integer tensors, a sharded HBM-resident k-mer index instead of an mmap'd
-FST, and fused single-program pipelines instead of 20 processes glued
-with Unix pipes.
+MetaGenomics Analysis Pipeline) for an accelerator (an NVIDIA H100):
+JAX/XLA compute over dense integer tensors, a sharded device-resident
+k-mer index instead of an mmap'd FST, and fused single-program
+pipelines instead of 20 processes glued with Unix pipes.
 
 Layout:
 
@@ -20,7 +19,7 @@ Layout:
 - ``index``: offline index build (splitkmers/joinkmers/buildindex
   equivalents) and the packed hash-table index format.
 - ``pipeline``: the six preset analysis pipelines, fused.
-- ``parallel``: mesh/sharding utilities for multi-chip runs.
+- ``parallel``: mesh/sharding utilities for multi-device runs.
 - ``cli``: the ``umgap-tpu`` command-line surface mirroring all 20
   reference subcommands.
 """

@@ -12,7 +12,7 @@ Five aggregator strategies matching the reference's method×strategy matrix
 ``host`` holds exact (numpy) oracles used for parity and as golden
 references; ``device`` holds the batched JAX formulations used by the
 fused pipelines (masked matmuls over per-read lineage matrices — the
-TPU-native redesign of the reference's pointer-tree walks).
+batched redesign of the reference's pointer-tree walks).
 """
 
 from .host import (  # noqa: F401

@@ -1,6 +1,6 @@
 """Batched device aggregators (JAX, jittable).
 
-The TPU-native reformulation of the reference's per-read pointer-tree
+The batched reformulation of the reference's per-read pointer-tree
 walks: every read in a batch carries a fixed-width list of (taxon,
 count) hits; tree relations are answered by gathers from a device-
 resident ancestor-at-depth table; subtree sums and ancestor counts are
@@ -37,8 +37,8 @@ class DeviceTaxonomy:
         self.depth = depth            # (size,) int32, -1 for unreachable
         self.anc = anc                # (size, D) int32 ancestor-at-depth
         # geom packs [depth, anc row] per taxon so hit_geometry needs ONE
-        # row gather per hit (row width is nearly free on TPU gathers;
-        # a second flat gather for depth costs ~10 ns/element).
+        # row gather per hit instead of a second flat gather for depth
+        # (tuned on an earlier accelerator, not yet measured on this card).
         self.geom = geom              # (size, 1 + D) int32
         self.snap_valid = snap_valid  # (size,) int32 snapping (valid)
         self.snap_ranked = snap_ranked  # (size,) int32 (valid+ranked)
@@ -176,18 +176,17 @@ def hit_geometry(dtax: DeviceTaxonomy, utaxa, uvalid) -> HitGeometry:
     dep = jnp.maximum(dep, 0)
     B, K, D = lin.shape
     # anc_of_j_at_depth_of_i[b, i, j] = lin[b, j, dep[b, i]], computed as a
-    # one-hot-depth contraction so it runs on the MXU instead of a
-    # materialized (B, K, K, D) gather. Taxon ids (< 2^24) are exact in
-    # f32 (bf16 planes were tried and lost: 3x the (B, K, K) outputs to
-    # materialize outweighs the faster MXU path).
+    # one-hot-depth contraction so it runs as a matrix product instead of
+    # a materialized (B, K, K, D) gather. Taxon ids (< 2^24) are exact in
+    # f32.
     onehot = (jnp.arange(D, dtype=jnp.int32)[None, None, :] == dep[:, :, None]
               ).astype(jnp.float32)  # (B, K_i, D)
     lin_f = lin.astype(jnp.float32)  # NONE = -1 stays representable
-    # Precision.HIGHEST: the values flowing through the MXU are taxon
-    # ids (up to ~2^24) and must stay EXACT — the TPU's default f32
-    # matmul precision truncates operands to bf16, which corrupts ids
-    # > 256 and broke the ancestor-equality compare on real hardware
-    # (CPU XLA computes true f32, so only TPU runs diverged).
+    # Precision.HIGHEST: the values flowing through the product are
+    # taxon ids (up to ~2^24) and must stay EXACT. At default precision
+    # an H100 may run an f32 matmul in TF32, whose 10-bit mantissa
+    # corrupts ids above 2^11 and breaks the ancestor-equality compare
+    # (CPU XLA computes true f32, so only accelerator runs diverge).
     a = jnp.einsum("bid,bjd->bij", onehot, lin_f,
                    preferred_element_type=jnp.float32,
                    precision=jax.lax.Precision.HIGHEST)

@@ -203,8 +203,8 @@ def rmq_mix_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid, factor: float):
     # cand i ancestor-or-self of input j: lin_input[j, depth_c[i]] == cand[i]
     onehot_c = (jnp.arange(D, dtype=jnp.int32)[None, None, :]
                 == cdep[:, :, None]).astype(jnp.float32)
-    # Precision.HIGHEST: taxon ids through the MXU must stay exact
-    # (TPU default matmul precision is bf16 — see agg/device.py)
+    # Precision.HIGHEST: taxon ids through the product must stay exact
+    # (default f32 matmuls may run in TF32 — see agg/device.py)
     a = jnp.einsum("bid,bjd->bij", onehot_c, lin.astype(jnp.float32),
                    preferred_element_type=jnp.float32,
                    precision=jax.lax.Precision.HIGHEST)

@@ -45,11 +45,9 @@ import numpy as np
 # conveyor placement (distance <= 1, tags 0/1) lifts the load ceiling
 # to ~0.9, fitting ~1.76x the keys in the same artifact bytes
 # (~9.2 B/key realized vs 16.3 at 0.49 load — denser than the
-# reference's ~10 B/key FST, README.md:54-57) at a 2-round probe —
-# a measured 2x the bucket64s per-query gather cost (22 vs 11 ns at
-# 4.3 GB; a (2,W)-slice windowed gather was measured 76x WORSE than
-# two takes, scripts/exp_window_gather.py — XLA's emitter only hits
-# the descriptor floor on single-row slices).  bucket16
+# reference's ~10 B/key FST, README.md:54-57) at a 2-round probe,
+# which gathers twice the bytes per query of bucket64s (tuned on an
+# earlier accelerator, not yet measured on this card).  bucket16
 # (conveyor-placed, <= 2 gathers, load
 # <= 0.9 ceiling) remains for memory-lean builds; bucket8s (the
 # cache-regime layout) needs its stash to absorb all bucket overflow,

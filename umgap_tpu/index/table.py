@@ -3,8 +3,8 @@
 The reference stores its index as an FST (string-keyed, prefix
 compressed, pointer-chasing lookups — /root/reference/src/commands/
 buildindex.rs:38-46, pept2lca.rs:74-79). Pointer chasing is hostile to
-TPUs; instead we store fixed-width integer arrays in HBM and probe them
-with vectorized row gathers:
+batched accelerators; instead we store fixed-width integer arrays in
+device memory and probe them with vectorized row gathers:
 
 - ``KmerTable``: fixed-length k-mers (k <= 10, 45-bit packed keys),
   stored *quotiented*: an invertible Feistel mix whitens the key, the
@@ -57,9 +57,9 @@ _FNV_OFFSET2 = np.uint32(0xCBF29CE4)
 # can never alias across rounds; bit 31 stays 0, keeping EMPTY = -1
 # unambiguous.
 MIN_NB_BITS = 15
-# bucket8s (narrow rows) wins only while the table is cache-regime
-# sized; beyond this key count single tables route to bucket64s, the
-# measured at-scale layout (see build_kmer_table)
+# bucket8s (narrow rows) for cache-sized tables; beyond this key count
+# single tables route to bucket64s (see build_kmer_table). Tuned on an
+# earlier accelerator, not yet measured on this card.
 BUCKET8S_MAX_KEYS = 30_000_000
 MAX_NB_BITS = 25
 DIST_BIT = np.int32(1 << 30)
@@ -701,11 +701,10 @@ class KmerTable:
 class CuckooKmerTable:
     """Fixed-k packed-kmer cuckoo table: the probe-optimal layout.
 
-    TPU gathers cost ~1 element/cycle, so lookup throughput is set by
-    *gathered elements per query*. The bucketized quotient table reads
-    2 rounds x (8 remainders + 8 values) = 32 int32 per query; this
-    layout reads 2 slots x (remainder, value) = 4 — two independent
-    invertible Feistel whitenings (``mix_key`` / ``mix_key2``) each own
+    It minimizes *gathered elements per query*: the bucketized quotient
+    table reads 2 rounds x (8 remainders + 8 values) = 32 int32 per
+    query; this layout reads 2 slots x (remainder, value) = 4 — two
+    independent invertible Feistel whitenings (``mix_key`` / ``mix_key2``) each own
     one half of the table, a key is stored in exactly one slot of one
     half, and the half disambiguates which mix to invert, so the full
     key is always recoverable (exact, like the reference's FST —
@@ -908,32 +907,30 @@ def build_kmer_table(packed: np.ndarray, values: np.ndarray, k: int,
     """Build a k-mer table in the requested layout.
 
     Single-gather layouts resolve every query with exactly ONE row
-    gather (one probe round + a broadcast-compared overflow stash), and
-    the v5e gather rate RISES as rows narrow (measured ~68 M rows/s at
-    128 B rows, ~90 M at 64 B, ~103 M at 32 B — scripts/exp_probe2.py),
-    so the narrowest single-gather layout that keeps the stash small
-    wins:
+    gather (one probe round + a broadcast-compared overflow stash). The
+    default and the size cut-over below were tuned on an earlier
+    accelerator, whose gather rate rose as rows narrowed; they are not
+    yet measured on this card:
 
     - ``bucket8s`` (default): 8-slot buckets, 64 B rows. At the default
       0.45 load factor a bucket holds ~1.9 keys on average, leaving
       ~1e-4 of keys in the stash (~200 per 2M) — same memory as
-      ``bucket16``, ~25% faster probes.
+      ``bucket16``, fewer bytes per probe.
     - ``bucket16``: 16-slot buckets, 128 B rows, near-empty stash at
       denser loads — the memory-lean choice for at-scale indexes.
     - ``bucket4s``: 4-slot, 32 B rows, fastest probe but needs ~4x the
       memory to keep the stash small (pass a lower ``load_factor``).
-    - ``cuckoo``: two gathers of 8 B — fewest bytes, but two row
-      gathers lose to one on a gather-rate-bound probe.
+    - ``cuckoo``: two gathers of 8 B — fewest bytes, but two dependent
+      row gathers.
     - ``bucket8``/``bucket4``: linear-probing variants (up to 2 rounds,
       2 full gathers); superseded by the ``*s`` single-gather layouts.
     """
     if layout == "bucket8s":
-        # The cache regime (narrow rows fastest) ends somewhere beyond
-        # ~100 MB of table; large single tables route to the measured
-        # at-scale optimum (bucket64s, one full-tile gather) instead.
-        # The 25-bit bucket-index cap additionally limits bucket-8
-        # tables to 2^25 buckets; only the geometry overflow triggers
-        # that fallback — any other error is a real bug and propagates.
+        # Large single tables route to bucket64s (one wide-row gather)
+        # instead of narrow cache-sized rows.  The 25-bit bucket-index
+        # cap additionally limits bucket-8 tables to 2^25 buckets; only
+        # the geometry overflow triggers that fallback — any other
+        # error is a real bug and propagates.
         if len(values) <= BUCKET8S_MAX_KEYS:
             kw8 = dict(kw)
             kw8.setdefault("stash_cap", 256)
@@ -945,15 +942,14 @@ def build_kmer_table(packed: np.ndarray, values: np.ndarray, k: int,
         return build_kmer_table(packed, values, k, layout="bucket64s",
                                 **kw)
     if layout == "bucket64s":
-        # THE at-scale serving layout (measured round 4, PERF.md): once
-        # a table exceeds on-chip cache, XLA's row gather is FASTEST at
-        # the full (8,128) tile width — a 512B row gathers 2.6x faster
-        # than a 128B row — so one 64-slot-bucket gather resolves every
-        # query at ~49M keys/s at 4.3GB vs ~12M for 2-round bucket16.
+        # The at-scale serving layout: one 64-slot (512 B) row gather
+        # resolves every query.  It was chosen on an earlier
+        # accelerator, whose gather was fastest at full 512 B rows; an
+        # H100 reads device memory in 32 B sectors, so it is not yet
+        # measured on this card.
         # Same 8 B/slot; sized at load <= 0.5 so the single round's
         # overflow stays within the stash (Poisson(32) beyond 64 slots:
-        # ~1e-7 of keys).  Small cache-resident tables should keep
-        # bucket8s (narrow rows win in the cache regime).
+        # ~1e-7 of keys).  Small cache-resident tables keep bucket8s.
         kw.setdefault("stash_cap", 256)
         kw.setdefault("load_factor", 0.5)
         return KmerTable.build(packed, values, k, bucket=64,

@@ -30,7 +30,7 @@ def ensure_built(quiet: bool = True) -> bool:
     try:
         # make is a no-op when the .so is fresh; rebuilds stale ones
         subprocess.run(
-            ["make", "-C", _NATIVE_DIR],
+            ["make", "-C", _NATIVE_DIR, os.path.basename(_LIB_PATH)],
             check=True,
             capture_output=quiet,
         )

@@ -1,3 +1,3 @@
 """Device ops: encodings, 6-frame translation, k-mer packing, seed-extend,
 and index probes. Pure-JAX formulations operating on fixed-shape integer
-tensors; Pallas kernels for the hot paths live alongside."""
+tensors, compiled by XLA."""

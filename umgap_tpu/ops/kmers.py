@@ -2,7 +2,7 @@
 
 A peptide k-mer over the 5-bit AA alphabet packs into 5*k bits; we split
 the packed value at bit 25 into two int32 lanes (``hi``, ``lo``) so all
-device arithmetic stays in 32 bits (TPU-native; no 64-bit integer ops).
+device arithmetic stays in 32 bits (no 64-bit integer ops).
 Supports k <= 10 (the reference default is 9,
 /root/reference/src/commands/prot2kmer.rs:38).
 

@@ -130,11 +130,10 @@ from ..index.table import hash32 as hash32_device  # noqa: E402 isort:skip
 # Gathered-row working set allowed per probe chunk. The gather
 # materializes a (Q, row_width) int32 buffer; at production batch sizes
 # against a bucket64s table that is GBs (16k pairs -> ~8.85M queries x
-# 512 B ~= 4.5 GB), which is what forced 12.9 GB-resident serving down
-# to 8k-pair batches (PERF.md round 4). Chunking the flat query axis
-# through lax.map bounds the buffer; the gather cost itself is flat
-# per-row (measured), so throughput is unchanged while peak activation
-# memory drops ~Q/chunk-fold.
+# 512 B ~= 4.5 GB). Chunking the flat query axis through lax.map bounds
+# the buffer, so peak activation memory drops ~Q/chunk-fold. The chunk
+# size was tuned on an earlier accelerator and is not yet measured on
+# this card.
 PROBE_CHUNK_BYTES = 256 << 20
 
 

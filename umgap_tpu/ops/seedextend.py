@@ -154,7 +154,7 @@ def seedextend_mask_batch(taxa, lengths, min_seed_size: int = 2,
     (pushes, pstarts, pstops), (f_push, f_start, f_stop) = _scan_seeds(
         tx, N, lanes, s, g)
 
-    # boundary deltas -> mask (one-hot matmul, MXU-friendly)
+    # boundary deltas -> mask (one-hot matmul)
     def deltas(push, pstart, pstop):
         # (..., N) increments at pstart, decrements at pstop (clipped)
         inc = (pos == pstart[..., None]) & push[..., None]

@@ -2,8 +2,8 @@
 
 Host path mirrors the reference command exactly
 (/root/reference/src/commands/translate.rs); the device path is the
-TPU-native form: a whole batch of padded DNA code tensors is translated
-in all six frames with pure gathers from a 125-entry codon table —
+batched form: a whole batch of padded DNA code tensors is translated in
+all six frames with a 125-entry codon table applied arithmetically —
 no per-read control flow, fully fused under jit.
 
 Frame naming follows the reference: "1","2","3" forward (1-indexed
@@ -44,9 +44,9 @@ def _bitplane_constants(tab: np.ndarray, out_bits: int):
 
 
 def _bitplane_lookup(idx: jax.Array, planes, out_bits: int) -> jax.Array:
-    """tab[idx] via bit-plane constants + variable shifts (pure VPU
-    arithmetic; TPU gathers cost ~1 element/cycle, this costs ~10 ops
-    per output bit with no memory traffic)."""
+    """tab[idx] via bit-plane constants + variable shifts: ~10
+    elementwise ops per output bit, no gather and no memory traffic
+    (tuned on an earlier accelerator, not yet measured on this card)."""
     w = (idx >> 5).astype(jnp.uint32)
     bitpos = (idx & 31).astype(jnp.uint32)
     out = jnp.zeros(idx.shape, dtype=jnp.uint32)
@@ -99,13 +99,13 @@ def translate6_batch(dna: jax.Array, lengths: jax.Array, table: TranslationTable
         frame's peptide length are AA_PAD.
       pep_lengths: (B, 6) int32 number of codons per frame.
 
-    TPU notes: gathers cost ~1 element/cycle on the VPU, so every lookup
-    here is recast as cheaper primitives — the complement is arithmetic,
-    per-frame codon extraction is a strided ``lax.slice`` (a relayout,
-    not a gather), and the 125-entry codon table is applied bit-plane
-    arithmetically (:func:`_bitplane_lookup`). The only remaining gather
-    is the per-read reversal (one ``take_along_axis`` over the batch,
-    shared by the three reverse frames).
+    Every lookup here is recast as elementwise arithmetic — the
+    complement is arithmetic, per-frame codon extraction is a strided
+    ``lax.slice`` (a relayout, not a gather), and the 125-entry codon
+    table is applied bit-plane arithmetically (:func:`_bitplane_lookup`).
+    The only remaining gather is the per-read reversal of long reads.
+    These choices were tuned on an earlier accelerator and are not yet
+    measured on this card.
     """
     B, L = dna.shape
     P = L // 3
@@ -124,9 +124,10 @@ def translate6_batch(dna: jax.Array, lengths: jax.Array, table: TranslationTable
     e = jnp.flip(fwd, axis=1)
     if L <= 160:
         # Short reads (the metagenomic case): the shift as a fused
-        # one-hot contraction (compare + multiply-reduce, DNA codes < 5
-        # exact in bf16) — no gathers, measured faster than
-        # take_along_axis at L=100. Quadratic in L, hence the cap.
+        # one-hot contraction (compare + multiply-reduce). Exact: each
+        # output has one nonzero term and DNA codes <= 4 are exact in
+        # bf16. No gathers; quadratic in L, hence the cap. Tuned on an
+        # earlier accelerator, not yet measured on this card.
         eb = jnp.where(e < 4, 3 - e, 4).astype(jnp.bfloat16)  # complement
         shift = (jnp.int32(L) - lengths).reshape(B, 1, 1)
         i_idx = jnp.arange(L, dtype=jnp.int32).reshape(1, L, 1)
@@ -134,8 +135,8 @@ def translate6_batch(dna: jax.Array, lengths: jax.Array, table: TranslationTable
         sel = (j_idx == i_idx + shift).astype(jnp.bfloat16)  # (B, L, L)
         rc = jnp.einsum("bij,bj->bi", sel, eb).astype(jnp.int32)
     else:
-        # Long reads: O(B*L) take_along_axis gather (~13 ns/element)
-        # instead of the O(B*L^2) selector.
+        # Long reads: O(B*L) take_along_axis gather instead of the
+        # O(B*L^2) selector.
         ec = jnp.where(e < 4, 3 - e, 4)
         shift = (jnp.int32(L) - lengths).astype(jnp.int32)
         idx = jnp.clip(pos + shift[:, None], 0, L - 1)

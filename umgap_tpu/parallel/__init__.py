@@ -1,10 +1,10 @@
-"""Multi-chip distribution.
+"""Multi-device distribution.
 
 The reference's parallelism is OS processes, rayon threads, and one Unix
-socket (SURVEY.md §2.5); here the pod-scale equivalents are JAX
+socket (SURVEY.md §2.5); here the multi-device equivalents are JAX
 collectives over a device mesh: reads are data-parallel across the mesh,
 the k-mer table is sharded across it (the ~100 GB 9-mer index cannot
-live on one chip), probes are routed to owner shards with ``all_to_all``
+live on one device), probes are routed to owner shards with ``all_to_all``
 and returned the same way, and sample-level frequency tables merge with
 ``psum``.
 """

@@ -6,7 +6,7 @@ counts per input file, emitting a CSV sorted by descending total. Here
 the counting runs sharded: each device snaps + bincounts its slice of
 the taxa over the FULL taxon id space (not a demo-sized clip) and the
 per-device vectors merge with one ``psum`` over the mesh axis — the
-TPU-native analogue of merging per-process count HashMaps.
+device analogue of merging per-process count HashMaps.
 
 The final CSV is produced by :func:`umgap_tpu.cli.format_freq_csv`, the
 same function the host command uses, so sharded and host outputs are

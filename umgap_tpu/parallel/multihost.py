@@ -1,20 +1,19 @@
-"""Multi-host (pod-slice) execution: hosts × chips mesh, per-host ingest.
+"""Multi-host execution: hosts × devices mesh, per-host ingest.
 
 The reference scales across machines by running one whole-index process
 per host (each loading the full ~100 GB FST,
 /root/reference/src/commands/prot2kmer2lca.rs:109-114) and splitting the
-SAMPLES between them. The TPU-native shape instead forms ONE global
-(host, chip) device mesh via ``jax.distributed``:
+SAMPLES between them. Here ONE global (host, chip) device mesh forms
+via ``jax.distributed`` instead:
 
-* the index is sharded over the flattened host×chip axis — each chip
-  holds 1/(H*C) of the table in HBM, so the 100 GB 9-mer index fits a
-  4-host v5p slice with no host RAM requirement at all (see
-  INDEX_BUILD.md for the sizing math);
+* the index is sharded over the flattened host×chip axis — each device
+  holds 1/(H*C) of the table in device memory, with no host RAM
+  requirement for the index at all;
 * reads are data-parallel: each host ingests only its slice of the
   FASTQ inputs (``per_host_groups``) and feeds process-local shards of
   the global batch (``jax.make_array_from_process_local_data``);
-* k-mer queries route to owner shards with ``all_to_all`` (riding ICI
-  within a host and DCN across hosts), results route back, aggregation
+* k-mer queries route to owner shards with ``all_to_all`` (within a
+  host and across hosts), results route back, aggregation
   stays local to each read's home device, and taxa2freq merges with one
   ``psum`` (parallel/freq.py).
 
@@ -34,8 +33,9 @@ import numpy as np
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
-    """Initialize the cross-host runtime (idempotent). On a real pod
-    slice the arguments come from the environment and may be omitted."""
+    """Initialize the cross-host runtime (idempotent). The arguments
+    may be omitted only where JAX can read the cluster from the
+    environment (e.g. a SLURM job); elsewhere pass all three."""
     import jax
 
     if num_processes is not None and int(num_processes) <= 1:
@@ -51,9 +51,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 
 def pod_mesh(host_axis: str = "host", chip_axis: str = "chip"):
-    """The global (hosts, chips-per-host) mesh, host-major so each row of
-    the device grid is one process's local chips (all_to_all rows cross
-    DCN, columns ride ICI)."""
+    """The global (hosts, devices-per-host) mesh, host-major so each row
+    of the device grid is one process's local devices (all_to_all along
+    a row crosses hosts, along a column stays on one host)."""
     import jax
     from jax.sharding import Mesh
 
@@ -119,7 +119,7 @@ def make_multihost_tryptic_pipeline(tax, peptides, values: np.ndarray,
                                     config, axis: str = "x"):
     """The tryptic analogue: peptide fingerprints hash-range sharded
     over the global mesh, digest local, probes routed all-to-all
-    (prot2tryp2lca semantics across the pod)."""
+    (prot2tryp2lca semantics across all hosts)."""
     from ..agg import device as devagg
     from .sharded import (
         ShardedTable,

@@ -1,9 +1,9 @@
 """Sharded k-mer table with all-to-all probe routing.
 
-The reference keeps one full copy of the ~100 GB FST per host
-(/root/reference/src/commands/prot2kmer2lca.rs:109-114). TPU-native
-design: partition keys by a hash-range function across the mesh, keep
-one shard per device in HBM, and for each batch route every query to its
+The reference keeps one full copy of the ~100 GB FST per host (its
+src/commands/prot2kmer2lca.rs:109-114). Here: partition
+keys by a hash-range function across the mesh, keep one shard per
+device in device memory, and for each batch route every query to its
 owner shard with ``lax.all_to_all``, probe locally, and route results
 back. Reads stay data-parallel on the same mesh axis.
 """
@@ -85,7 +85,7 @@ def build_sharded_peptide_tables(peptides, values: np.ndarray,
                                  store_keys: bool = False):
     """Partition tryptic peptides by fingerprint owner and build
     per-shard :class:`~umgap_tpu.index.table.PeptideTable`s with one
-    common capacity (rectangular stacked rows).  The TPU-scale analogue
+    common capacity (rectangular stacked rows).  The sharded analogue
     of the reference's single tryptic FST
     (/root/reference/src/commands/prot2tryp2lca.rs:100-139)."""
     from ..index.table import PeptideTable, _fingerprints, _pow2_capacity

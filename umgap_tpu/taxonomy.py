@@ -1,10 +1,10 @@
 """Taxonomy model as dense arrays.
 
-TPU-first redesign of the reference's taxonomy layer (reference:
+Dense-array redesign of the reference's taxonomy layer (reference:
 ``/root/reference/src/taxon.rs``). Where the reference keeps a pointer tree
 (``TaxonTree``, ``src/taxon.rs:214-302``) and walks it recursively, we build
 dense, id-indexed ``numpy`` vectors once on the host — parent, rank, valid,
-depth, snapping — and ship them to device HBM so that every per-read tree
+depth, snapping — and ship them to device memory so that every per-read tree
 operation (LCA, snapping, MRTL walks) becomes a batch of gathers.
 
 File format parity: the 5-column taxon TSV (``id\\tname\\trank\\tparent\\t
